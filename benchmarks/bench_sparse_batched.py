@@ -34,8 +34,6 @@ def main():
 
     import jax
 
-    if os.environ.get("JAX_PLATFORMS"):
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
     import madqp_tpu as mq
     from madqp_tpu.parallel import solve_sparse_batched

@@ -27,7 +27,7 @@ def main():
     ap.add_argument("--band", type=int, default=5)
     ap.add_argument("--grid", type=int, default=0,
                     help="use a gxg 2D-grid LP instead of the banded LP "
-                         "(wide-front etree — the MXU-friendly regime)")
+                         "(wide-front etree — the batched-front regime)")
     ap.add_argument("--tol", type=float, default=1e-8)
     ap.add_argument("--kkt", choices=["normal", "augmented"],
                     default="normal")
@@ -42,8 +42,6 @@ def main():
 
     import jax
 
-    if os.environ.get("JAX_PLATFORMS"):
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
     import madqp_tpu as mq
 

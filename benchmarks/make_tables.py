@@ -6,7 +6,7 @@ LaTeX longtable with per-instance time ratios
 (reference generate_tables.jl:55-72).
 
 Usage:
-    python benchmarks/make_tables.py cpu.json tpu.json --labels cpu tpu
+    python benchmarks/make_tables.py host.json gpu.json --labels host gpu
     python benchmarks/make_tables.py a.json b.json --format latex -o t.tex
 """
 

@@ -4,7 +4,7 @@ A capability the reference cannot offer (it is a Julia solver with no AD
 story): `qp_layer` is a JAX-transformable function whose output is the
 optimal primal-dual point of a convex QP and whose VJP is computed by the
 implicit function theorem on the KKT conditions — usable under `grad`,
-`jit`, and `vmap` (batched differentiable QP layers on the MXU, the
+`jit`, and `vmap` (batched differentiable QP layers on the device, the
 OptNet pattern).
 
 Math.  At a solution w* = (x, y, zl, zu) of

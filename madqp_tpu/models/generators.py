@@ -238,7 +238,7 @@ def grid_lp(g: int = 100, seed: int = 0) -> QuadraticProblem:
 
     The normal matrix L L' + I has a 2D-mesh pattern whose elimination
     tree (under AMD) is a real tree with O(g)-wide root fronts — the
-    MXU-friendly sparse regime, in contrast to banded chains whose etree
+    batched-front sparse regime, in contrast to banded chains whose etree
     is a sequential path.  COO built directly (scipy.sparse.random is slow
     at scale in this image).
     """

@@ -5,12 +5,12 @@ the reference (/root/reference/test/runtests.jl:39-55, scripts/common.jl:133):
 
     min_x  c0 + c'x + 1/2 x'Hx   s.t.  lcon <= Ax <= ucon,  lvar <= x <= uvar
 
-The internal `StandardQP` is the TPU-native data model replacing MadNLP's
+The internal `StandardQP` is the device data model replacing MadNLP's
 PrimalVector/SubVector index-view machinery (SURVEY §1 L2): slack variables
 are appended so every constraint is an equality `A x = b`, and bound index
 sets (`ind_lb`/`ind_ub` in the reference, src/structure.jl:95-102) become
-boolean masks over full-length padded arrays — TPUs prefer masked dense math
-over gathers.  Fixed variables (lvar == uvar) are eliminated by substitution,
+boolean masks over full-length padded arrays — accelerators prefer masked
+dense math over gathers.  Fixed variables (lvar == uvar) are eliminated by substitution,
 the functional equivalent of MadNLP's MakeParameter treatment.
 """
 
@@ -486,7 +486,7 @@ def build_standard_form(
     bound_relax_factor: float = 1e-8,
 ) -> tuple[StandardQP, TransformInfo, np.ndarray, np.ndarray]:
     """Dense-path standard form: the sparse core, densified (SURVEY §7.1:
-    dense padded arrays beat sparse on the TPU MXU for moderate n)."""
+    dense padded arrays beat sparse on the device for moderate n)."""
     std_sp, info, x0_int, y0_int = build_standard_form_sparse(
         qp, scaling=scaling, max_gradient=max_gradient,
         fixed_variable_treatment=fixed_variable_treatment,

@@ -2,14 +2,14 @@
 
 Host-side sparse symbolic analysis + LDL^T factorization: the framework's
 equivalent of the reference's LDLFactorizations.jl / CHOLMOD native layer
-(SURVEY §2.4).  The shared library is built on demand with g++ (pybind11 is
-not available in this image; the C ABI + ctypes keeps the binding layer
-dependency-free).
+(SURVEY §2.4).  The shared library is built on demand with g++ (the C ABI +
+ctypes keeps the binding layer dependency-free).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 from typing import Optional
@@ -17,10 +17,8 @@ from typing import Optional
 import numpy as np
 import scipy.sparse as sp
 
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "libmadqp_native.so")
-_SRC = os.path.join(
-    os.path.dirname(__file__), "..", "..", "native", "src", "sparse_ldl.cpp"
-)
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_DIR, "..", "..", "native", "src", "sparse_ldl.cpp")
 _lib: Optional[ctypes.CDLL] = None
 
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -28,24 +26,35 @@ _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
+def lib_path() -> str:
+    """Path of the shared library built from the CURRENT source: the file
+    name carries the source's hash, so an edited source (or a stale .so
+    left by another checkout) is never loaded in its place."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_DIR, f"libmadqp_native-{digest}.so")
+
+
 def build(force: bool = False) -> str:
-    """Compile the shared library if missing.  Returns its path."""
-    if force or not os.path.exists(_LIB_PATH):
-        src = os.path.abspath(_SRC)
+    """Compile the shared library unless the current source's build exists.
+    Raises CalledProcessError when the compiler fails.  Returns its path."""
+    path = lib_path()
+    if force or not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
         subprocess.run(
             ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-o",
-             _LIB_PATH, src],
+             tmp, os.path.abspath(_SRC)],
             check=True,
         )
-    return _LIB_PATH
+        os.replace(tmp, path)  # atomic: concurrent builders never see half
+    return path
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    build()
-    lib = ctypes.CDLL(_LIB_PATH)
+    lib = ctypes.CDLL(build())
     lib.madqp_etree.argtypes = [ctypes.c_int, _i64p, _i32p, _i32p]
     lib.madqp_postorder.argtypes = [ctypes.c_int, _i32p, _i32p]
     lib.madqp_col_counts.argtypes = [ctypes.c_int, _i64p, _i32p, _i32p, _i32p]
@@ -65,6 +74,8 @@ def _load() -> ctypes.CDLL:
 
 
 def available() -> bool:
+    """True when the library builds and loads (build errors are swallowed
+    here; call build() to see them)."""
     try:
         _load()
         return True
@@ -142,11 +153,11 @@ def nd_order(A: sp.spmatrix, leaf: int = 96) -> np.ndarray:
     vertex separator, recurse on the two halves, number the separator
     LAST.  Leaves (<= `leaf` vertices) are ordered with AMD.
 
-    The point on TPU is tree *shape*, not fill: separators become the
+    The point on the device is tree *shape*, not fill: separators become the
     top supernodes, so the assembly tree is balanced with 2^k
     independent, same-shaped subtrees at depth k — which the bucketed/
     batched numeric phase (ops/sparse_chol.py) turns into one batched
-    MXU call per level instead of one long sequential chain.  (The
+    dense call per level instead of one long sequential chain.  (The
     reference leaves ordering to CHOLMOD/cuDSS's internal ND,
     src/utils.jl:60-62; here it is explicit.)
     """

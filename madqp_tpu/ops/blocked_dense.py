@@ -1,11 +1,8 @@
 """GEMM-rich blocked dense factorizations for the supernodal numeric phase.
 
-XLA's own batched `cholesky` / `triangular_solve` on TPU lower to long
-sequential column sweeps over the full panel; in software-emulated f64
-they run ~50x slower than the equivalent GEMM FLOPs (measured on a TPU
-v5: (256,128,128) f64 cholesky 1039 ms vs 18 ms for the same-shape
-matmul; triangular_solve 310 ms).  Since the f64 endgame of the
-two-phase sparse solver is factorization-bound, these replacements
+XLA's own batched `cholesky` / `triangular_solve` can lower to long
+sequential column sweeps over the full panel.  Since the f64 endgame of
+the two-phase sparse solver is factorization-bound, these replacements
 restructure the same math so that all O(w^3) work lands in batched
 matmuls and only O(w) steps of (nb, b, b) elementwise work stay
 sequential (b = the 32-wide unblocked base).
@@ -21,7 +18,7 @@ Contents (all batched over arbitrary leading dims, last two dims w x w):
   * `inv_unit_lower` / `inv_lower` — blocked triangular inversion
     (explicit inverses turn every downstream panel solve into a matmul).
 
-Reference context: the numeric phase these feed is the TPU equivalent of
+Reference context: the numeric phase these feed is the device equivalent of
 cuDSS's factorization loop (scripts/benchmarks_gpu.jl:41-42); the
 pivot-floor semantics mirror dense_ldl (cuDSS-style static pivoting).
 """
@@ -113,9 +110,8 @@ _PANEL_MIN = 1024    # 2-D inputs at least this wide take the panel path
 
 def _chol_block(D):
     """Cholesky + explicit inverse of one (w, w) SPD panel via XLA's
-    native kernels.  At w=256 these are ~0.013 ms on a TPU v5e — three
-    orders of magnitude faster than the recursive blocked LDL base
-    (26.9 ms) that panel_ldl uses for the signed case."""
+    native kernels (the recursive blocked LDL base that panel_ldl uses for
+    the signed case is far slower at this width)."""
     Lp = jax.lax.linalg.cholesky(D)
     iLp = jax.lax.linalg.triangular_solve(
         Lp, jnp.eye(D.shape[-1], dtype=D.dtype), left_side=True, lower=True)
@@ -240,19 +236,14 @@ def factor_inv_chol(Ms):
     """Factor an SPD (n, n) matrix and invert the CHOLESKY FACTOR:
     returns (L_chol, iL) with iL = L_chol^-1, so Ms^-1 r = iL' (iL r)
     is two matvecs.  The full inverse iL'iL is deliberately NOT formed —
-    that n^3 GEMM costs as much as the factorization itself on this
-    chip.  A non-SPD input yields NaNs in L_chol's diagonal (factor_ok
-    contract).
+    that n^3 GEMM costs about as much as the factorization itself.  A
+    non-SPD input yields NaNs in L_chol's diagonal (factor_ok contract).
 
-    Path choice (round-5 pinned-f32 remeasure, dense_refresh.json):
+    Path choice (tuned on earlier hardware; awaits a sweep on the GPU):
     - f32 below the panel threshold: NATIVE XLA cholesky +
-      triangular_solve — ~0.6 ms at n=4096 and ~0.01 ms at n=256; the
-      GEMM-rich LDL recursion that replaces it for f64 is latency-bound
-      at small n on TPU (224 ms at n=200, measured in the diet-2000
-      iteration breakdown).
-    - f64 (software-emulated matmuls) keeps the GEMM-rich recursion:
-      XLA's native f64 cholesky lowers to sequential column sweeps that
-      run ~50x slower than the same flops as emulated-f64 GEMMs.
+      triangular_solve; the GEMM-rich LDL recursion is latency-bound at
+      small n.
+    - f64 below the panel threshold keeps the GEMM-rich recursion.
     - large 2-D inputs of either dtype: the two-level panel path."""
     n = Ms.shape[-1]
     if Ms.ndim == 2 and n >= _PANEL_MIN:
@@ -285,12 +276,9 @@ def panel_ldl(F, sgn=None, floor: float = 0.0, panel: int = PANEL):
     full-width masked rank-panel GEMM per step.
 
     The masked update spends ~6x the ideal flop count (n^2*panel per step
-    instead of the shrinking triangle), but they are MXU matmul flops and
+    instead of the shrinking triangle), but they are matmul flops and
     the program is O(1) in n/panel — one compiled loop body — versus the
-    recursion's O(n/blk) unrolled stages (measured: n=8192 f32 recursive
-    blocked LDL 8.6 s / 42 GF/s on a TPU v5e; XLA's own cholesky 1.08 s /
-    340 GF/s; both far below the ~33 TF/s 6-pass-f32 ceiling this path
-    targets)."""
+    recursion's O(n/blk) unrolled stages."""
     n = F.shape[-1]
     K = -(-n // panel)
     npad = K * panel

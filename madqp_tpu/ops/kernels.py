@@ -1,9 +1,9 @@
 """Masked IPM math kernels (JAX twin of reference src/kernels.jl).
 
-TPU-first design decisions (SURVEY §7.1):
+Accelerator-first design decisions (SURVEY §7.1):
   * The reference's `ind_lb`/`ind_ub` gather views (SubVector) become boolean
     masks `has_lb`/`has_ub` over full-length arrays — masked dense arithmetic
-    vectorizes on the VPU and avoids gathers.
+    vectorizes and avoids gathers.
   * Bound-dual vectors `zl`/`zu` are full-length with zeros off-mask.
   * `lb`/`ub` are pre-sanitized finite placeholders off-mask so no 0*inf NaNs.
   * Scalar decisions (ratio tests, barrier) are on-device reductions that feed

@@ -1,4 +1,4 @@
-"""KKT systems: the four formulations of SURVEY §2.3, dense TPU backends.
+"""KKT systems: the four formulations of SURVEY §2.3, dense backends.
 
 Protocol (functional equivalent of MadNLP's AbstractKKTSystem as implemented
 by the reference at src/KKT/normalkkt.jl:128-219):
@@ -19,7 +19,7 @@ differ in conditioning and cost:
 
   * CONDENSED — block elimination: Cholesky of W (SPD: H PSD + pr_diag > 0),
     then Cholesky of the SPD Schur complement S = A W^-1 A' - dc I.  Two
-    MXU-friendly dense factorizations; the primary TPU path.
+    dense SPD factorizations; the primary dense path.
   * NORMAL    — LP specialization (W diagonal): S = A D A' - dc I with
     D = 1/pr_diag.  Rejects QPs like the reference (normalkkt.jl:45-48).
   * K2        — full (n+m) symmetric-indefinite augmented matrix, dense LU.
@@ -77,23 +77,15 @@ class DenseCondensedKKT:
         self.fact_dtype = jnp.dtype(fact_dtype) if fact_dtype else None
         self.solve_mode = solve_mode
         self.blocked = chol_backend == "blocked"
-        if chol_backend == "pallas":
-            from .pallas_chol import select_cholesky
-
-            self._chol = select_cholesky("pallas")
-        else:
-            self._chol = lambda M: jsl.cholesky(M, lower=True)
 
     def _blocked_inv(self, M):
         """GEMM-rich factor + INVERSE CHOLESKY FACTOR (ops/blocked_dense):
-        XLA's dense cholesky/triangular_solve lower to sequential column
-        sweeps on TPU; the blocked/panel factorizations keep the O(n^3)
-        work in matmuls and the explicit inverse FACTOR iL = L_chol^-1
-        turns every later backsolve into two matvecs (M^-1 r =
-        D iL' iL D r).  The full inverse iL'iL is never formed — that
-        extra n^3 GEMM costs as much as the factorization itself on this
-        chip (measured: chol+full-inverse 5.2 s vs chol 1.25 s at
-        n=8192).  Returns (chol_like_factor_for_factor_ok, iL, scale)."""
+        the blocked/panel factorizations keep the O(n^3) work in matmuls
+        and the explicit inverse FACTOR iL = L_chol^-1 turns every later
+        backsolve into two matvecs (M^-1 r = D iL' iL D r).  The full
+        inverse iL'iL is never formed — that extra n^3 GEMM costs about as
+        much as the factorization itself.  Returns
+        (chol_like_factor_for_factor_ok, iL, scale)."""
         from .blocked_dense import factor_inv_chol
 
         d = jnp.diagonal(M)
@@ -135,8 +127,8 @@ class DenseCondensedKKT:
         """Unscaled explicit inverse through the scaled factorization:
         M^-1 = D Ms^-1 D with D = diag(scale).  Triangular solves against the
         identity are one-time per factorization; afterwards every backsolve
-        is a single matvec on the MXU (vector triangular solves on TPU are
-        latency-bound sequential scans)."""
+        is a single matvec (vector triangular solves are latency-bound
+        sequential sweeps)."""
         n = chol.shape[0]
         eye = jnp.eye(n, dtype=chol.dtype)
         Ms_inv = jsl.cho_solve((chol, True), eye)
@@ -150,7 +142,7 @@ class DenseCondensedKKT:
         Ms = scale[:, None] * M * scale[None, :]
         if self.fact_dtype is not None and Ms.dtype != self.fact_dtype:
             Ms = Ms.astype(self.fact_dtype)
-        return self._chol(Ms), scale
+        return jsl.cholesky(Ms, lower=True), scale
 
     def _chol_apply(self, chol, scale, r, out_dtype):
         """Solve M x = r through the scaled factorization."""
@@ -294,8 +286,8 @@ class DenseK2KKT:
                          and scale is not None) else 0.0
         Lu, d = blocked_ldl(Kf, sgn=sgn, floor=floor)
         # Keep the inverse unit factor, not the full K^-1: the extra
-        # (n+m)^3 GEMM i11' D^-1 i11 costs as much as the factorization
-        # itself on this chip; solves are two matvecs + a diagonal scale.
+        # (n+m)^3 GEMM i11' D^-1 i11 costs about as much as the
+        # factorization itself; solves are two matvecs + a diagonal scale.
         i11 = inv_unit_lower(Lu)
         return K2BlockedFactors(iLu=i11, d=d, sgn=sgn, scale=scale)
 

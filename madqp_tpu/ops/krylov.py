@@ -1,11 +1,9 @@
 """Jittable preconditioned Krylov solvers for the sparse endgame.
 
-The two-phase mixed-precision scheme's f64 endgame is the dominant cost on
-TPU — both in device time (software-emulated f64 supernodal factorization)
-and in compile time (the f64 program alone costs ~164 s of XLA compile on
-the banded n=20k LP; benchmarks/exp_compile_tpu_granular.py).  Stationary
+The two-phase mixed-precision scheme's f64 endgame needs an f64
+supernodal factorization, a second large program to compile.  Stationary
 iterative refinement against an f32 factor stalls short of 1e-8 once
-eps_f32 * cond(K) ~ 1 (BENCH_NOTES), but the same f32 factor used as a
+eps_f32 * cond(K) ~ 1, but the same f32 factor used as a
 PRECONDITIONER for f64 conjugate gradients converges: CG only needs the
 preconditioned spectrum clustered, not the contraction |I - M^-1 K| < 1.
 Reference hook: the residual-check/refinement seam of

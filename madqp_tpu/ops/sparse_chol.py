@@ -1,7 +1,7 @@
 """Supernodal multifrontal sparse Cholesky on device (SPARSE_PLAN S1+S2).
 
 The on-device answer to SURVEY §7.3 hard part #1 ("sparse symmetric
-factorization on TPU — nothing exists off-the-shelf").  Strategy:
+factorization on the device — nothing exists off-the-shelf").  Strategy:
 
   * host symbolic (once per pattern): fill-reducing ordering + elimination
     tree + exact factor structure (via the native C++ layer), fundamental
@@ -80,7 +80,7 @@ def analyze(A: sp.spmatrix, order: str = "auto",
     most `relax` padded rows to the panel.  Fundamental supernodes alone
     degenerate to width 1 on banded/chain patterns (struct(j-1) is never
     exactly {j} ∪ struct(j)); relaxation recovers the wide dense panels
-    the MXU needs — on a banded matrix the merge is exact (zero fill) and
+    the batched dense fronts need — on a banded matrix the merge is exact (zero fill) and
     panels reach max_supernode width.
     """
     from ..native import SparseLDL, etree as _etree, ordering, postorder
@@ -193,7 +193,7 @@ def analyze(A: sp.spmatrix, order: str = "auto",
 
     # extend-add maps: child update rows = child.rows[wc:] — all appear in
     # the parent's row set (by the etree property, possibly spread).
-    # Incremental feasibility guard (round-5 laplqp post-mortem): these
+    # Incremental feasibility guard (laplqp post-mortem): these
     # flat uc^2-entry maps are where high-fill patterns (2-D-grid ND
     # factorizations) first explode — the 22.5k Laplacian ate >26M
     # entries on a SINGLE supernode and >55 GB in total before the OOM
@@ -352,8 +352,8 @@ def _pad_class(v: int, lo: int = 8) -> int:
     """Coarse pad classes: powers of 4 from 8 (8, 32, 128, 512), then
     powers of 2.  Fewer distinct front shapes means fewer XLA stages —
     same-shape rounds merge and consecutive rounds scan-group — and the
-    extra padded flops are idle-MXU food (the whole grid-20k factorization
-    is ~0.4 GFLOP against a ~33 TFLOP/s f32 ceiling)."""
+    extra padded flops are cheap (the whole grid-20k factorization is
+    ~0.4 GFLOP)."""
     if v <= 0:
         return 0
     b = lo
@@ -459,8 +459,8 @@ class BucketedSymbolic:
 # jit ARGUMENT.  Baking them as host constants folds tens of MB into every
 # lowered module — measured on the grid-20k normal matrix: 84 MB module,
 # 8.4 s lower + 15.9 s XLA compile for ONE factorization walk (CPU), vs
-# ~0 s with the arrays passed as arguments (benchmarks/
-# exp_compile_breakdown.py).  Shape/pad metadata stays static aux data.
+# ~0 s with the arrays passed as arguments.  Shape/pad metadata stays
+# static aux data.
 
 def _register_sched(cls, leaf_fields, aux_fields):
     def flatten(obj):
@@ -508,7 +508,7 @@ def schedule_cost(bs: "BucketedSymbolic",
     """Predicted device seconds for one factorization of this schedule.
 
     Two terms: sequential dispatch latency (every bucket is one stage;
-    every chain element is one lax.scan step) and padded-front MXU flops.
+    every chain element is one lax.scan step) and padded-front flops.
     The constants are deliberately coarse — the model only has to rank
     orderings (see analyze_batched order='auto'), not predict wall time.
     """
@@ -648,15 +648,15 @@ def analyze_batched(A: sp.spmatrix, order: str = "auto",
         collapse into one `_BucketScan` `lax.scan` stage.  XLA program
         size scales with the number of shape runs (typically ≤ 10), not
         with supernodes or tree levels — this is what holds the sparse
-        cold-compile tax down (VERDICT round-1 #1).
+        cold-compile tax down.
       * "level" — the round-2 scheduler: power-of-two pads, per-level
         shape buckets, single-child paths extracted as `_Chain` scans.
         Kept as the reference implementation for A/B tests.
 
     order='auto' builds the schedule under both AMD (minimum fill) and
     nested dissection (minimum critical path) and keeps the one with the
-    lower predicted device cost: on TPU, sequential stage count is
-    usually worth more than fill — the opposite of the CPU trade-off
+    lower predicted device cost: on an accelerator, sequential stage count
+    is usually worth more than fill — the opposite of the CPU trade-off
     the reference's CHOLMOD default makes (src/utils.jl:60-62).
     """
     if order == "auto":
@@ -695,7 +695,7 @@ def analyze_batched(A: sp.spmatrix, order: str = "auto",
         # every node in the maximal suffix of small rounds to the suffix's
         # max shape so the whole tail becomes consecutive same-shape
         # rounds == ONE scan stage; the extra padded flops are negligible
-        # against the leaf rounds (and the MXU is idle regardless).
+        # against the leaf rounds.
         cut = len(rounds)
         while cut > 1 and len(rounds[cut - 1][1]) <= 8:
             cut -= 1
@@ -712,12 +712,12 @@ def analyze_batched(A: sp.spmatrix, order: str = "auto",
     upd_off = np.zeros(nsn + 1, np.int64)
     np.cumsum(u_sizes * u_sizes, out=upd_off[1:])
     total_upd = int(upd_off[-1])
-    # Feasibility guard (round 5): the flat scatter-map numeric phase
+    # Feasibility guard: the flat scatter-map numeric phase
     # materializes index arrays proportional to the PADDED update
     # traffic.  High-fill patterns (laplqp's 22.5k grid Laplacian ND
     # factorization) explode this to billions of entries — the symbolic
-    # phase alone ate >55 GB before the OOM killer fired and took
-    # sibling benchmark runs with it.  Fail fast with a typed error so
+    # phase alone ate >55 GB of host memory.  The default cap was sized
+    # for a 16 GB device and awaits a re-derivation.  Fail fast with a typed error so
     # drivers can fall back to the host path cleanly.
     padded_upd = int(np.sum((u_pads.astype(np.int64)) ** 2))
     cap = int(float(__import__("os").environ.get(
@@ -999,8 +999,8 @@ def _chain_scan(ch: _Chain, a_values, upd_buf, dtype, ldl: bool,
         F = F[:-1].reshape(r_pad, r_pad)
         F = jnp.tril(F) + jnp.tril(F, -1).T
         # GEMM-rich blocked factorization + explicit diagonal-block inverse
-        # (ops/blocked_dense): XLA's cholesky/triangular_solve sequential
-        # column sweeps are ~16x slower in emulated f64 on TPU.
+        # (ops/blocked_dense) in place of XLA's cholesky/triangular_solve
+        # sequential column sweeps.
         if ldl:
             L11, d = blocked_ldl(F[:w_pad, :w_pad], sgn=sg, floor=pivot_floor)
             i11 = inv_unit_lower(L11)
@@ -1069,10 +1069,10 @@ def _chain_solve_bwd(ch: _Chain, panels, x, n, unit=False, inverse=False):
 
 def _inv_lower(L, unit: bool = False):
     """Batched explicit inverse of lower-triangular L (small panel widths;
-    turns the latency-bound per-front triangular backsolves into MXU
+    turns the latency-bound per-front triangular backsolves into
     matmuls — same trade as the dense path's solve_mode='inverse').
-    GEMM-rich blocked recursion (ops/blocked_dense): XLA's
-    triangular_solve-against-identity runs ~4x slower in emulated f64."""
+    GEMM-rich blocked recursion (ops/blocked_dense) in place of XLA's
+    triangular_solve-against-identity."""
     from .blocked_dense import inv_lower as _blk_inv
     return _blk_inv(L, unit=unit)
 
@@ -1206,8 +1206,7 @@ def factorize_batched(bs: BucketedSymbolic, a_values, inverse: bool = False):
         w_pad, u_pad = bk.w_pad, bk.u_pad
         F = _assemble_bucket(bk, a_values, upd_buf, dtype)
         # Blocked GEMM-rich Cholesky + explicit inverse replace XLA's
-        # cholesky/triangular_solve (measured on TPU f64 (256,128,128):
-        # 64 ms vs 1017 ms, and the trsm becomes an 18 ms matmul).
+        # cholesky/triangular_solve; the trsm becomes a matmul.
         Lu, dch = blocked_ldl(F[:, :w_pad, :w_pad])
         sq = jnp.sqrt(dch)
         L11 = Lu * sq[:, None, :]

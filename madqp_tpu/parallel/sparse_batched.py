@@ -1,12 +1,12 @@
 """Batched sparse solving: vmap the supernodal sparse path over instances
 sharing one sparsity pattern.
 
-TPU-idiomatic scale-out with no reference analog (SURVEY §2.5: the
+Accelerator scale-out with no reference analog (SURVEY §2.5: the
 reference is one-process/one-GPU; cuDSS offers no cross-instance batching
 of a shared symbolic).  The symbolic analysis (ordering, supernodes,
 level buckets — the expensive host phase) is computed ONCE from the
 shared pattern; the numeric phase vmaps over the instance axis, so every
-bucketed dense-front factorization becomes one bigger MXU batch.  Lanes
+bucketed dense-front factorization becomes one bigger batched matmul.  Lanes
 that converge freeze via the vmapped `lax.while_loop` convergence
 masking, exactly like the dense batched path (parallel/batched.py).
 

@@ -10,9 +10,9 @@ two-stage stochastic program
 
 whose Newton/KKT system has arrow structure.  Per iteration each scenario
 factors its local condensed blocks Ui = Hi + diag(sigma_i) and
-Si = Wi Ui^-1 Wi' - dc I (batched Cholesky over the scenario axis — MXU
-work), contributes Ci = Ti' Si^-1 Ti to the first-stage Schur complement
-(the cross-scenario *reduction*; over a mesh this is the psum/ICI step),
+Si = Wi Ui^-1 Wi' - dc I (batched Cholesky over the scenario axis),
+contributes Ci = Ti' Si^-1 Ti to the first-stage Schur complement
+(the cross-scenario *reduction*; over a mesh this is the all-reduce step),
 and back-substitutes locally.
 
 The flat solver state is reused unchanged: TwoStageProblem exposes the same

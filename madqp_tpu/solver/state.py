@@ -1,6 +1,6 @@
 """Solver state as an immutable pytree.
 
-TPU-native replacement for the reference's mutable MPCSolver struct
+Functional replacement for the reference's mutable MPCSolver struct
 (src/structure.jl:1-176): iteration is a pure function state -> state driven
 by lax.while_loop (SURVEY §7.1).  Bounds live in the state because
 adjust_boundary! mutates them (reference src/solver.jl:342).
@@ -110,8 +110,8 @@ class IPMState(NamedTuple):
     # reference src/solver.jl:6-125) has been computed.  The starting-point
     # work runs INSIDE the first `iteration` call (gated by this flag) so a
     # full solve traces exactly one factorize walk and one backsolve walk —
-    # on the sparse supernodal paths each traced walk costs tens of seconds
-    # of XLA compile (benchmarks/exp_compile_tpu_granular.py).
+    # on the sparse supernodal paths each traced walk costs seconds of XLA
+    # compile.
     initialized: jax.Array  # bool
 
 

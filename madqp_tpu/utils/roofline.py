@@ -1,15 +1,16 @@
-"""Roofline / MFU accounting for the hot kernels (VERDICT round-1 #3).
+"""Roofline accounting for the hot kernels.
 
-The BASELINE north star is "per-iteration factorization+solve at
-HBM-bandwidth speed-of-light per chip"; this module supplies the chip
-peaks, flop/byte models for the factorization kernels, and a measured ->
-fraction-of-peak report used by bench.py and the experiment scripts.
+This module supplies the card's published peaks, flop/byte models for the
+factorization kernels, and a measured -> fraction-of-peak report used by
+bench.py and the experiment scripts.
 
-Peaks are per-chip dataplane numbers from public spec sheets; they bound
-the achievable rate, they are not measured on this host.  f32 matmuls on
-the TPU MXU run as multi-pass bf16 ("highest" precision, 6 passes) so the
-realistic f32 ceiling is peak_bf16/6; f64 is software-emulated (~20x under
-f32 in our measurements, no published peak).
+Peaks are per-card numbers from NVIDIA's H100 data sheet (dense rates,
+without sparsity, at the full power limit); they bound the achievable rate,
+they are not measured here.  A card set below its maximum power limit cannot
+hold its top clock under a matrix-heavy load, so report the card's power
+limit beside any share computed from these peaks.  f32 products run on the
+CUDA cores at the FP32 rate when pinned to "highest" precision; at default
+precision XLA may route them through the TF32 tensor cores.
 """
 
 from __future__ import annotations
@@ -20,33 +21,37 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ChipPeaks:
     name: str
-    bf16_tflops: float       # MXU peak, dense matmul
-    f32_tflops: float        # effective ceiling for "highest" precision
+    f64_tflops: float        # FP64 tensor-core peak
+    f32_tflops: float        # FP32 (CUDA cores; "highest" precision)
+    tf32_tflops: float       # TF32 tensor-core peak, dense
+    bf16_tflops: float       # bf16 tensor-core peak, dense
     hbm_gbps: float          # HBM bandwidth
 
 
+# Keyed by jax Device.device_kind.  Source: NVIDIA H100 Tensor Core GPU data
+# sheet, SXM5 column (FP64 tensor 67, FP32 67, TF32 495 / bf16 989 dense,
+# 3.35 TB/s HBM3).
 _PEAKS = {
-    # TPU v5e ("v5 lite"): 197 TFLOP/s bf16, 819 GB/s HBM (public spec).
-    "v5 lite": ChipPeaks("TPU v5e", 197.0, 197.0 / 6.0, 819.0),
-    # TPU v5p: 459 TFLOP/s bf16, 2765 GB/s.
-    "v5p": ChipPeaks("TPU v5p", 459.0, 459.0 / 6.0, 2765.0),
-    # TPU v4: 275 TFLOP/s bf16, 1228 GB/s.
-    "v4": ChipPeaks("TPU v4", 275.0, 275.0 / 6.0, 1228.0),
+    "NVIDIA H100 80GB HBM3": ChipPeaks(
+        "NVIDIA H100 SXM", 67.0, 67.0, 495.0, 989.0, 3350.0),
 }
 
 
 def chip_peaks(device=None) -> ChipPeaks:
-    """Best-effort peaks for the given (default: first) jax device."""
-    import jax
-
+    """Peaks for the given (default: first) jax device; raises KeyError for
+    a device kind not in the table (a roofline share against a guessed peak
+    is not a measurement)."""
     if device is None:
+        import jax
+
         device = jax.devices()[0]
-    kind = getattr(device, "device_kind", str(device)).lower()
-    for key, peaks in _PEAKS.items():
-        if key in kind:
-            return peaks
-    return ChipPeaks(f"unknown({kind})", float("nan"), float("nan"),
-                     float("nan"))
+    kind = getattr(device, "device_kind", str(device))
+    try:
+        return _PEAKS[kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {kind!r}; known: "
+            f"{sorted(_PEAKS)}") from None
 
 
 def dense_ldl_flops(n: int) -> float:
@@ -61,7 +66,7 @@ def dense_ldl_bytes(n: int, dtype_bytes: int) -> float:
 
 def schedule_flops(bs) -> float:
     """Padded factorization flops of a supernodal schedule (the flops the
-    chip EXECUTES, including padding) — matches ops/sparse_chol.
+    device EXECUTES, including padding) — matches ops/sparse_chol.
     schedule_cost's flop term."""
     total = 0.0
     for it in bs.schedule:
@@ -83,20 +88,24 @@ def schedule_bytes(bs, dtype_bytes: int) -> float:
     return total
 
 
+_PEAK_FIELD = {"float64": "f64_tflops", "float32": "f32_tflops",
+               "tf32": "tf32_tflops", "bfloat16": "bf16_tflops"}
+
+
 def roofline_report(flops: float, bytes_moved: float, seconds: float,
                     dtype: str = "float32", device=None) -> dict:
-    """Achieved GFLOP/s + GB/s and their fractions of the chip peaks."""
+    """Achieved GFLOP/s + GB/s and their fractions of the card's peaks.
+    dtype selects the compute peak: float64, float32 (pinned "highest"),
+    tf32 or bfloat16."""
     peaks = chip_peaks(device)
-    peak_tf = peaks.f32_tflops if dtype != "bfloat16" else peaks.bf16_tflops
+    peak_tf = getattr(peaks, _PEAK_FIELD[dtype])
     gflops = flops / seconds / 1e9
     gbps = bytes_moved / seconds / 1e9
     return {
         "chip": peaks.name,
-        "seconds": round(seconds, 6),
-        "gflops": round(gflops, 2),
-        "mfu": round(gflops / (peak_tf * 1e3), 4)
-        if peak_tf == peak_tf else None,
-        "gbps": round(gbps, 2),
-        "hbm_frac": round(gbps / peaks.hbm_gbps, 4)
-        if peaks.hbm_gbps == peaks.hbm_gbps else None,
+        "seconds": seconds,
+        "gflops": gflops,
+        "flops_frac": gflops / (peak_tf * 1e3),
+        "gbps": gbps,
+        "hbm_frac": gbps / peaks.hbm_gbps,
     }

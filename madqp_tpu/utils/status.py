@@ -1,6 +1,6 @@
 """Solver status codes, execution statistics and counters.
 
-TPU-native re-design of the MadNLP solver-abstraction surface consumed by the
+Functional re-design of the MadNLP solver-abstraction surface consumed by the
 reference (see /root/reference/src/solver.jl:363-399 for the status taxonomy
 and MadNLPExecutionStats usage at src/solver.jl:351,399).  `success` is
 `status == Status.SOLVE_SUCCEEDED`, matching the reference's `status == 1`
@@ -82,7 +82,7 @@ class Counters:
     total_time: float = 0.0
     linear_solver_time: float = 0.0
     # Wall seconds spent in a two-phase solve's endgame (phase 2).  For
-    # endgame="host" this is HOST-CPU time inside a nominally-TPU solve —
+    # endgame="host" this is HOST-CPU time inside a nominally-device solve —
     # recorded so suite ratios can state the hybrid share honestly.
     endgame_time: float = 0.0
     endgame_backend: str = ""

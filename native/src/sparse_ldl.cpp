@@ -1,7 +1,7 @@
 // Sparse symmetric analysis + up-looking LDL^T factorization.
 //
 // Native CPU backend of the framework's sparse linear-solver layer: the
-// TPU-native equivalent of the reference's LDLFactorizations.jl /CHOLMOD
+// equivalent of the reference's LDLFactorizations.jl /CHOLMOD
 // dependency (reference SURVEY §2.4: L0 direct solvers).  Exposed through a
 // C ABI consumed via ctypes (madqp_tpu/native/__init__.py).
 //

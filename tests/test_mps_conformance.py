@@ -1,4 +1,4 @@
-"""MPS conformance fixtures (VERDICT round-1 #5): fixed-format quirks the
+"""MPS conformance fixtures: fixed-format quirks the
 reference consumes through QPSReader (scripts/common.jl:21-36) —
 negative RANGES on E/L/G rows, RHS on the objective row, the UP-negative
 quirk, short BOUNDS forms — each round-tripped through write_mps and the

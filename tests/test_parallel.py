@@ -98,10 +98,8 @@ def test_batched_mixed_precision_rescue():
 def test_batched_stepped_loop_matches_jit():
     """loop_mode='python' (chunked host-stepped dispatch, the large-dim
     default under 'auto') must reproduce the single-program while_loop
-    solve bit-for-bit in status/iterations/objective — it is the fence
-    against the TPU-worker watchdog kill on long lockstep dispatches
-    (benchmarks/repro_fault.py: 10 lanes x 1024 dims with a 99-iteration
-    lane crashes the worker in one dispatch)."""
+    solve bit-for-bit in status/iterations/objective — it bounds the
+    work of each dispatch on long lockstep solves."""
     qps = _problems(5)
     ref = BatchedMPCSolver.from_problems(
         qps, print_level=40, tol=1e-8, loop_mode="jit")
@@ -112,8 +110,7 @@ def test_batched_stepped_loop_matches_jit():
         assert b.iter == a.iter
         assert b.objective == pytest.approx(a.objective, rel=1e-12, abs=1e-12)
 
-    # two-phase rescue with a stepped f64 endgame (the dispatch that
-    # crashed the worker on the structured:large 1024 bucket)
+    # two-phase rescue with a stepped f64 endgame
     rescue = BatchedMPCSolver.from_problems(
         qps, print_level=40, tol=1e-8, loop_mode="python",
         factorization_dtype="float32", max_refine_steps=1)
@@ -126,8 +123,8 @@ def test_batched_lane_shrunk_rescue_matches_full_width():
     """When only a few lanes fail phase 1, the rescue gathers exactly
     those lanes (padded to a pow2 count), runs the warm f64 phase on the
     small batch, and scatters back — results must match the full-width
-    lockstep rescue (which it replaces for cost: emulated f64 is 10-20x
-    f32, so rescuing 2 of 10 lanes is ~5x cheaper)."""
+    lockstep rescue (which it replaces for cost: rescuing 2 of 10 lanes
+    runs a fifth of the f64 lanes)."""
     import madqp_tpu as mq
     from madqp_tpu.models.suite import structured_suite
     from madqp_tpu.parallel import BatchedMPCSolver

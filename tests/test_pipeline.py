@@ -562,7 +562,7 @@ class TestDuplicateRowEdgeCases:
 
 
 class TestPresolveRound2:
-    """Forcing rows, dominated columns, duplicate columns (VERDICT #10 —
+    """Forcing rows, dominated columns, duplicate columns (
     QuadraticModels-presolve parity, reference scripts/common.jl:109-126),
     each with exact primal-dual postsolve."""
 

@@ -59,7 +59,7 @@ def test_gzip_ingestion():
 
 def test_dir_harness_ingests_corpus(tmp_path):
     """run_suite --dir end-to-end over the corpus directory (the reader's
-    first contact with non-self-written input, VERDICT #9)."""
+    first contact with non-self-written input)."""
     import json
     import subprocess
     import sys

@@ -466,7 +466,7 @@ class TestMixedPrecisionRescue:
     The transportation LP has a rank-deficient equality block (supplies sum
     = demands sum), where the f32 condensed Schur complement stalls around
     1e-5 primal feasibility while f64 reaches 1e-8 (measured; the sparse
-    paths hit the same wall, BENCH_NOTES).  The rescue must recover full
+    paths hit the same wall).  The rescue must recover full
     tolerance without giving up the pure-f32 fast path on well-conditioned
     problems."""
 
@@ -494,7 +494,7 @@ class TestMixedPrecisionRescue:
                         max_refine_steps=1, **QUIET)
         st64 = mq.solve(qp, tol=1e-8, **QUIET)
         assert st32.status == Status.SOLVE_SUCCEEDED
-        # f32+IR reproduces the f64 iterate path (BENCH_NOTES) — if the
+        # f32+IR reproduces the f64 iterate path — if the
         # rescue phase had kicked in, the combined count would exceed it.
         assert st32.iter <= st64.iter + 1
 

@@ -65,7 +65,7 @@ def test_augmented_kkt_residual_qp():
     r1 = W @ np.asarray(dx) + Ad.T @ np.asarray(dy) - np.asarray(rx)
     r2 = Ad @ np.asarray(dx) + del_c * np.asarray(dy) - np.asarray(ry)
     # Pivotless quasi-definite LDL trades a little backward error for
-    # TPU-friendliness; 1e-7 on a unit-scale system is ample for the IPM
+    # batched-front friendliness; 1e-7 on a unit-scale system is ample for the IPM
     # (the solve loop's check_residual tolerance is 1e-8 *relative*).
     assert np.abs(r1).max() < 1e-7
     assert np.abs(r2).max() < 1e-7

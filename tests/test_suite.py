@@ -37,7 +37,7 @@ def test_suite_instance_solves(nm, qp):
 
 
 def test_xlarge_tier_reaches_netlib_mm_scale():
-    """The xlarge tier must reach Netlib/MM-scale dimensions (VERDICT #5):
+    """The xlarge tier must reach Netlib/MM-scale dimensions:
     n up to 5e4, sparse NON-diagonal Hessians at scale.  Construct only."""
     dims = {}
     for kind in ("chainqp", "lasso", "bandedlp", "cvxqp", "gridlp",
@@ -125,8 +125,7 @@ def test_portfolio_feasible_at_every_tier():
 
 
 def test_portfolio_xlarge_solves_host():
-    """The round-3 double-max_iter family must now reach status 1
-    (VERDICT round-3 'next round' #4)."""
+    """The round-3 double-max_iter family must now reach status 1."""
     qp = SU._MAKERS["portfolio"](*SU._DIMS["portfolio"]["xlarge"], seed=0)
     qp_p, _, ok = mq.presolve_qp(qp)
     assert ok
